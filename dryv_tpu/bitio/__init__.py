@@ -2,7 +2,7 @@
 
 Mirrors the capability of the reference's src/byte/bit.rs (BitStream with
 inline emulation-prevention-byte removal, exp-Golomb, alignment helpers) but
-is designed for the TPU-native pipeline: EPB stripping is done once up-front
+is designed for the batched device pipeline: EPB stripping is done once up-front
 per NAL (``strip_emulation_prevention``) so the hot entropy loop reads from a
 clean RBSP buffer.
 """

@@ -2,7 +2,7 @@
 
 The reference implements this as src/video/cabac/ (~3.1k LoC Rust) fused with
 reconstruction; here the entropy stage is a standalone host-side component
-that emits dense per-frame coefficient/mode tensors for the TPU kernels.
+that emits dense per-frame coefficient/mode tensors for the device kernels.
 """
 from .engine import CabacDecoder
 from .encoder import CabacEncoder

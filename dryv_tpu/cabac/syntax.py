@@ -7,7 +7,8 @@ shared between the decode path (CabacDecoder) and the encode path
 The decode side is the behavioural mirror of reference
 src/video/cabac/mod.rs:89-1111 (macroblock_layer and friends), restructured:
 instead of reconstructing pixels per-MB, it fills per-slice dense arrays
-(coefficients in scan order + mode/QP planes) that the TPU kernels consume.
+(coefficients in scan order + mode/QP planes) that the device kernels
+consume.
 
 Scope: I slices (I_NxN 4x4/8x8, I_16x16, I_PCM), chroma_array_type 0-3
 (4:4:4 Cb/Cr residuals ride the luma process with categories 6-13), and

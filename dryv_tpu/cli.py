@@ -1,7 +1,7 @@
 """CLI driver (reference src/main.rs + src/cli.rs).
 
 Usage: python -m dryv_tpu <file.mp4> [-d] [-o OUT] [--frames N]
-       [--backend jax|native|scalar]
+       [--backend jax|device-ipb|native|scalar] [--stats] [--interpret]
 """
 from __future__ import annotations
 
@@ -11,8 +11,8 @@ import time
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(prog="dryv-tpu",
-                                 description="TPU-native AVC decode engine")
+    ap = argparse.ArgumentParser(prog="dryv",
+                                 description="H.264/AVC decode engine")
     ap.add_argument("filepath")
     ap.add_argument("-d", "--debug", action="store_true")
     ap.add_argument("-o", "--output", default="temp/yuv_frame",
@@ -25,6 +25,9 @@ def main(argv=None):
     ap.add_argument("--stats", action="store_true",
                     help="print per-stage timing (demux/entropy/pack/"
                          "dispatch) as JSON after decoding")
+    ap.add_argument("--interpret", action="store_true",
+                    help="run the device wavefront kernel in Pallas "
+                         "interpret mode (for machines without a GPU)")
     args = ap.parse_args(argv)
 
     logging.basicConfig(
@@ -34,8 +37,10 @@ def main(argv=None):
         fh = logging.FileHandler("debug.log", mode="w")
         logging.getLogger().addHandler(fh)
 
+    from .utils.compile_cache import setup_compile_cache
     from .video import Video
 
+    setup_compile_cache()
     t0 = time.time()
     v = Video.open(args.filepath)
     info = v.info()
@@ -46,7 +51,7 @@ def main(argv=None):
         from .utils.obs import StageTimers
         tm = StageTimers()
     frames = v.decode_frames(max_frames=args.frames, backend=args.backend,
-                             timers=tm)
+                             timers=tm, interpret=args.interpret)
     if frames:
         import os
         os.makedirs(os.path.dirname(args.output) or ".", exist_ok=True)

@@ -2,7 +2,7 @@
 
 The entropy stage (Python SliceCoder or the C++ native stage) produces
 per-MB records; this module packs them into the dense numpy arrays the
-TPU reconstruction pipeline consumes (SURVEY.md §7: "emitting dense
+device reconstruction pipeline consumes (SURVEY.md §7: "emitting dense
 per-frame tensors: coefficient blocks, mode planes, QP plane, cbp plane").
 
 Layout choices:

@@ -1,9 +1,9 @@
 """Decoder facade: byte stream -> syntax -> reconstruction -> YUV planes.
 
 Mirrors the reference's Decoder::decode_sample orchestration
-(src/video/decoder.rs:87-150) with the TPU-native split: entropy decode
+(src/video/decoder.rs:87-150) with the device-oriented split: entropy decode
 fills dense per-frame syntax, reconstruction runs as a separate stage
-(scalar refimpl here; the JAX/Pallas pipeline consumes the same syntax).
+(scalar refimpl here; the JAX device pipeline consumes the same syntax).
 """
 from __future__ import annotations
 

@@ -13,9 +13,9 @@ Per picture:
      the per-picture weighted-prediction tables.  ~2 MB/frame at 1080p
      where the per-array legacy path (device_ipb.py) ships ~15 MB
      through 30+ transfers.
-  4. Device (jit): Pallas densify -> residual tiles; MC over the
+  4. Device (jit): densify -> residual tiles; MC over the
      device-resident reference stack (kernels/inter.py mc_frame) with
-     weighted prediction resolved on device; the Pallas wavefront
+     weighted prediction resolved on device; the intra wavefront
      reconstructs intra MBs with inter tiles riding the PCM channel;
      in-loop deblocking with edge parameters precomputed on device
      (kernels/deblock.py deblock_precompute_jax — including the inter
@@ -85,8 +85,7 @@ _SPLIT_CACHE: dict = {}
 
 
 def _splitter(npad, n, n4, W, ecap, ovcap):
-    """Per-section single-slice jitted programs (one fused program with
-    many u8 slices stalls the XLA TPU compiler; see gop_pipeline)."""
+    """Per-section single-slice jitted programs (slice + bitcast)."""
     key = (npad, n, n4, W, ecap, ovcap)
     fn = _SPLIT_CACHE.get(key)
     if fn is not None:
@@ -128,16 +127,15 @@ _FN_CACHE: dict = {}
 
 
 def _make_pic_fn(mb_w, mb_h, deblocked, wp_mode, c0, c1, W, ecap, ovcap,
-                 interpret=None, nlists=2):
+                 nlists=2, interpret=False):
     """jit((blob segments..., refs_y [R,H,W] u8, refs_cb, refs_cr))
     -> (y [H,W], cb, cr) uint8 reconstructed (+deblocked) planes.
 
     nlists: 0 = all-intra picture (no MC at all), 1 = P (list 0 only),
-    2 = B.  Static per-picture-type variants: the XLA TPU gather behind
-    MC costs ~9 ns/element, so not gathering the unused list's windows
-    halves the P-frame device time."""
-    key = (mb_w, mb_h, deblocked, wp_mode, c0, c1, W, ecap, ovcap,
-           interpret, nlists)
+    2 = B: static per-picture-type variants, so an unused list's windows
+    are never gathered."""
+    key = (mb_w, mb_h, deblocked, wp_mode, c0, c1, W, ecap, ovcap, nlists,
+           interpret)
     fn = _FN_CACHE.get(key)
     if fn is not None:
         return fn
@@ -146,25 +144,18 @@ def _make_pic_fn(mb_w, mb_h, deblocked, wp_mode, c0, c1, W, ecap, ovcap,
 
     from .avc.neighbors import ZSCAN_4X4_POS
     from .kernels.deblock import deblock_precompute_jax, PRE_KEYS
-    from .kernels.densify import BLK, make_densify, round_up
+    from .kernels.densify import unpack_coeffs
     from .kernels.inter import mc_frame, resolve_wp_blocks_jax
-    from .kernels.pallas_deblock import make_gop_recon_deblock_pallas
-    from .kernels.pallas_wavefront import make_gop_recon_pallas
     from .kernels.transform import (LS4_FLAT, LS8_FLAT,
                                     chroma_residual_tiles,
                                     luma_residual_tiles)
+    from .kernels.wavefront_kernel import make_gop_wavefront_kernel_fn
     from .refimpl.transform import QPC_TAB
 
     n = mb_w * mb_h
     n4 = n * 16
-    npad = round_up(n, BLK)
     qpc_tab = jnp.asarray(QPC_TAB, jnp.int32)
-    densify = make_densify(1, npad, W, interpret=interpret)
-    if deblocked:
-        recon = make_gop_recon_deblock_pallas(mb_w, mb_h, 1,
-                                              interpret=interpret)
-    else:
-        recon = make_gop_recon_pallas(mb_w, mb_h, 1, interpret=interpret)
+    recon = make_gop_wavefront_kernel_fn(mb_w, mb_h, deblocked, interpret)
     ls4 = jnp.asarray(LS4_FLAT)
     ls8 = jnp.asarray(LS8_FLAT)
 
@@ -172,17 +163,12 @@ def _make_pic_fn(mb_w, mb_h, deblocked, wp_mode, c0, c1, W, ecap, ovcap,
         qpi = jnp.clip(qp + off, 0, 51)
         return jnp.where(qpi < 30, qpi, qpc_tab[jnp.clip(qpi - 30, 0, 21)])
 
-    # NOTE: prep (densify/residuals/MC/precompute) and the wavefront
-    # recon run as TWO jitted programs chained through device arrays —
-    # one fused program compiles, but XLA's TPU scheduler serializes it
-    # ~5x slower than the sum of its parts at 1080p (measured round 5)
+    # prep (densify/residuals/MC/precompute) and the wavefront recon run
+    # as two jitted programs chained through device arrays
 
     def run(g, refs_y, refs_cb, refs_cr):
-        dense = densify(g["bmp"][None], g["vals"][None])   # [1,npad,408]
-        flat = dense.reshape(1, npad * I16_STRIDE)
-        flat = flat.at[0, g["exc_idx"]].add(g["exc_delta"])
-        dense = flat.reshape(npad, I16_STRIDE)
-        dense = dense.at[g["ovf_idx"]].set(g["ovf_rows"], mode="drop")
+        dense = unpack_coeffs(g["bmp"], g["vals"], g["exc_idx"],
+                              g["exc_delta"], g["ovf_idx"], g["ovf_rows"])
         lanes = dense[:n].astype(jnp.int32)
 
         u8 = g["u8"]
@@ -265,8 +251,7 @@ def _make_pic_fn(mb_w, mb_h, deblocked, wp_mode, c0, c1, W, ecap, ovcap,
         nz_z = jnp.where((t8 == 1)[:, None] | (kind == KIND_I8)[:, None],
                          nz8[:, blk >> 2], nzz)
         H4, W4 = mb_h * 4, mb_w * 4
-        # z-scan -> raster block grid as one static gather + transpose (a
-        # scatter loop here cost ~100 ms/frame in XLA on TPU)
+        # z-scan -> raster block grid as one static gather + transpose
         perm = np.zeros(16, np.int32)
         for z in range(16):
             ox, oy = ZSCAN_4X4_POS[z]
@@ -296,7 +281,7 @@ def _make_pic_fn(mb_w, mb_h, deblocked, wp_mode, c0, c1, W, ecap, ovcap,
 
 def decode_annexb_device_packed(stream: bytes, max_frames: int = 0,
                                 n_threads: int = 0, device_out: bool = False,
-                                interpret=None):
+                                interpret: bool = False):
     """Decode an Annex-B I/P/B stream with packed-wire device recon.
 
     Same output contract as device_ipb.decode_annexb_device; falls back
@@ -504,7 +489,7 @@ def decode_annexb_device_packed(stream: bytes, max_frames: int = 0,
                   else 1)
         fn = _make_pic_fn(mb_w, mb_h, deblocked, wp_mode,
                           pps.chroma_qp_index_offset, off1, W, ecap,
-                          ovcap, interpret, nlists=nlists)
+                          ovcap, nlists=nlists, interpret=interpret)
         y, cb, cr = fn(g, refs_y, refs_cb, refs_cr)
 
         pic = dpb.mark_and_store(sps, h0, nal0, poc)

@@ -1,99 +1,48 @@
-"""Pallas bitmap-densify kernel: sparse coefficient ABI -> dense int16.
+"""Bitmap coefficient ABI -> dense int16 rows, in plain jax.numpy.
 
 The host ships, per frame, a per-MB nonzero bitmap (51 bytes = 408 bits
-per MB), per-MB padded nonzero values (int8, clipped to +/-127), and the
-per-MB nonzero counts; this kernel rebuilds the dense [n_mbs, 408] int16
-coefficient rows on device.  Everything is formulated gather-free (XLA's
-general gather runs at ~10 cycles/element on TPU and cost 45 ms/frame in
-the round-3 pipeline):
-
- * byte->lane expansion of the bitmap rides the MXU (one-hot matmul),
- * the within-row nonzero rank is an MXU matmul with a lower-triangular
-   ones matrix (bf16 inputs are exact for 0/1 and counts <= 408),
- * value placement is a compare-select accumulation over nonzero slots,
-   extracting 8 vals columns per step with a one-hot MXU matmul (Mosaic
-   has no dynamic minor-dim vector loads), early-exited per block on the
-   block's max nonzero count.
-
-|v| > 127 corrections ride a tiny separate (idx, delta) scatter applied
-by the caller.  Replaces the reference's per-coefficient scalar writes
-(/root/reference/src/video/cabac/mod.rs:562-675 residual loop feeding
-macroblock storage) with a batch device-side reconstruction.
+per MB) and per-MB nonzero values in row order (int8, clipped to +/-127,
+``W`` slots per MB).  The dense row is rebuilt with one inclusive
+``cumsum`` over the bits (the rank of each nonzero) and one
+``take_along_axis`` into the values.  Ranks past ``W`` read 0: such MBs
+ship their whole dense row through the overflow channel, and |v| > 127
+corrections ride a separate (idx, delta) scatter (unpack_coeffs).
 """
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
 
 L = 408        # coefficient row length per MB
 NB = 51        # bitmap bytes per MB row (408 bits)
-BLK = 128      # MBs per grid step
+BLK = 128      # the MB count is padded to a multiple of this (npad)
 
 
 def round_up(x: int, q: int) -> int:
     return (x + q - 1) // q * q
 
 
-def make_densify(F: int, npad: int, W: int, interpret=None):
-    """pallas_call: (bmp [F,npad,51] u8, vals [F,npad,W] i8)
-    -> dense [F,npad,408] i16.
+def densify(bmp, vals):
+    """(bmp [..., 51] u8, vals [..., W] i8) -> dense [..., 408] i16.
 
-    npad must be a multiple of BLK (pad rows with zero bitmaps)."""
-    assert npad % BLK == 0 and W % 8 == 0
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    grid = (F, npad // BLK)
+    Bit c of a row sits at byte c >> 3, bit c & 7."""
+    W = vals.shape[-1]
+    lane = jnp.arange(L, dtype=jnp.int32)
+    bytes_i = bmp.astype(jnp.int32)[..., lane >> 3]
+    bits = (bytes_i >> (lane & 7)) & 1
+    rank = jnp.cumsum(bits, axis=-1, dtype=jnp.int32)     # inclusive
+    v = jnp.take_along_axis(vals, jnp.clip(rank - 1, 0, W - 1), axis=-1)
+    keep = (bits == 1) & (rank <= W)
+    return jnp.where(keep, v.astype(jnp.int16), jnp.int16(0))
 
-    def kernel(bmp_ref, vals_ref, out_ref):
-        bmp = bmp_ref[0].astype(jnp.int32).astype(jnp.bfloat16)
-        kio = jax.lax.broadcasted_iota(jnp.int32, (NB, L), 0)
-        cio = jax.lax.broadcasted_iota(jnp.int32, (NB, L), 1)
-        expand = (cio // 8 == kio).astype(jnp.bfloat16)
-        bytes_i = jax.lax.dot(bmp, expand,
-                              preferred_element_type=jnp.float32
-                              ).astype(jnp.int32)          # [BLK, 408]
-        lane = jax.lax.broadcasted_iota(jnp.int32, (BLK, L), 1)
-        bits = (bytes_i >> (lane & 7)) & 1
-        i0 = jax.lax.broadcasted_iota(jnp.int32, (L, L), 0)
-        j0 = jax.lax.broadcasted_iota(jnp.int32, (L, L), 1)
-        lower_tri = (i0 <= j0).astype(jnp.bfloat16)
-        rinc = jax.lax.dot(bits.astype(jnp.bfloat16), lower_tri,
-                           preferred_element_type=jnp.float32
-                           ).astype(jnp.int32)             # inclusive rank
-        # the block's max nonzero count falls out of the rank matmul
-        # (inclusive rank at the last lane = the row's total), so the
-        # host ships no count array at all
-        wmax = jnp.max(rinc[:, L - 1:L])
-        vals = vals_ref[0].astype(jnp.bfloat16)            # [BLK, W]
-        jl = jax.lax.broadcasted_iota(jnp.int32, (W, 8), 0)
-        tl = jax.lax.broadcasted_iota(jnp.int32, (W, 8), 1)
 
-        def body(g, acc):
-            sel = (jl - 8 * g == tl).astype(jnp.bfloat16)
-            v8 = jax.lax.dot(vals, sel,
-                             preferred_element_type=jnp.float32
-                             ).astype(jnp.int32)           # [BLK, 8]
-            for t in range(8):
-                w = 8 * g + t
-                acc = acc + jnp.where(rinc == w + 1, v8[:, t:t + 1], 0)
-            return acc
+def unpack_coeffs(bmp, vals, exc_idx, exc_delta, ovf_idx, ovf_rows):
+    """One frame of the wire ABI -> dense [npad, 408] int16 rows.
 
-        ngrp = (wmax + 7) // 8
-        acc = jax.lax.fori_loop(0, ngrp, body,
-                                jnp.zeros((BLK, L), jnp.int32))
-        # unset lanes after a set lane share its inclusive rank; a final
-        # mask by the bitmap kills those duplicated selections
-        out_ref[0] = (acc * bits).astype(jnp.int16)
-
-    return pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, BLK, NB), lambda f, b: (f, b, 0)),
-            pl.BlockSpec((1, BLK, W), lambda f, b: (f, b, 0)),
-        ],
-        out_specs=pl.BlockSpec((1, BLK, L), lambda f, b: (f, b, 0)),
-        out_shape=jax.ShapeDtypeStruct((F, npad, L), jnp.int16),
-        interpret=interpret,
-    )
+    bmp [npad, 51] u8, vals [npad, W] i8; exc_idx [E] i32 flat indices
+    into the dense rows with exc_delta [E] i16 corrections for |v| > 127
+    (padding slots: index 0, delta 0); ovf_idx [O] i32 MB rows replaced
+    whole by ovf_rows [O, 408] i16 (padding slots: index npad, dropped)."""
+    npad = bmp.shape[0]
+    flat = densify(bmp, vals).reshape(npad * L)
+    flat = flat.at[exc_idx].add(exc_delta)
+    return flat.reshape(npad, L).at[ovf_idx].set(ovf_rows, mode="drop")

@@ -41,14 +41,8 @@ def mc_luma_blocks(ref_flat, rs, mv, bx4, by4, H, W):
     ref_flat: [R*H*W] int32 flattened reference stack; rs [n4] stack slot
     (clipped to valid; mask invalid blocks downstream); mv [n4,2]
     quarter-pel; bx4/by4 [n4] block coordinates (in 4x4 units).
-    Returns [n4,4,4] int32 predictions.
-
-    NOTE round 5: this elementwise flat gather costs ~200 ms per 1080p
-    frame on TPU (n4*81 single-element fetches) and dominates the
-    per-picture device IPB latency.  A lax.gather with (1,9,16) slice
-    windows over edge-padded stacks was tried and lowered ~8x SLOWER
-    still; the real fix is a Pallas MC kernel with scalar-prefetched
-    window DMAs (future work, see BASELINE.md)."""
+    Returns [n4,4,4] int32 predictions (one elementwise flat gather of
+    n4*81 samples)."""
     mvx, mvy = mv[:, 0], mv[:, 1]
     bx = bx4 * 4 + (mvx >> 2) - 2
     by = by4 * 4 + (mvy >> 2) - 2

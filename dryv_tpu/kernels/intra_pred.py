@@ -8,13 +8,17 @@ from __future__ import annotations
 
 from functools import lru_cache
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
+# float dots below carry exact small integers (|acc| < 2^24); HIGHEST
+# keeps them in full f32 (no TF32 input rounding) on every backend
+_HI = jax.lax.Precision.HIGHEST
+
 
 def _mode_select(vals, mode, n_modes):
-    """vals [K, M, P], mode [K] -> [K, P] via one-hot multiply-add (TPU
-    gathers are slow; this stays on the VPU)."""
+    """vals [K, M, P], mode [K] -> [K, P] via one-hot multiply-add."""
     oh = (jnp.arange(n_modes, dtype=jnp.int32)[None, :] ==
           mode[:, None]).astype(vals.dtype)
     return jnp.einsum("km,kmp->kp", oh, vals)
@@ -36,7 +40,7 @@ def pred4x4_fast(mode, above, left, corner, avail_a, avail_b, bitdepth=8):
     -> [K,4,4].  Bit-identical to pred4x4_batch (verified in tests)."""
     M, R, S = (jnp.asarray(t) for t in _mat4())
     s = jnp.concatenate([corner[:, None], above, left], axis=1)  # [K,13]
-    acc = jnp.dot(s.astype(jnp.float32), M,
+    acc = jnp.dot(s.astype(jnp.float32), M, precision=_HI,
                   preferred_element_type=jnp.float32)
     vals = ((acc.astype(jnp.int32) + R) >> S).reshape(-1, 9, 16)
     sel = _mode_select(vals, mode.astype(jnp.int32), 9)
@@ -65,7 +69,7 @@ def pred8x8_fast(mode, above, left, corner, avail_a, avail_b, bitdepth=8):
     above [K,16], left [K,8], corner [K] -> [K,8,8]."""
     M, R, S = (jnp.asarray(t) for t in _mat8())
     s = jnp.concatenate([corner[:, None], above, left], axis=1)  # [K,25]
-    acc = jnp.dot(s.astype(jnp.float32), M,
+    acc = jnp.dot(s.astype(jnp.float32), M, precision=_HI,
                   preferred_element_type=jnp.float32)
     vals = ((acc.astype(jnp.int32) + R) >> S).reshape(-1, 9, 64)
     sel = _mode_select(vals, mode.astype(jnp.int32), 9)
@@ -93,9 +97,10 @@ def filter8x8_fast(above, left, corner, avail_a, avail_b, avail_d):
     M1, M0 = (jnp.asarray(t) for t in _fmat8())
     s = jnp.concatenate([corner[:, None], above, left], axis=1)  # [K,25]
     sf = s.astype(jnp.float32)
-    f_d = (jnp.dot(sf, M1, preferred_element_type=jnp.float32)
+    f_d = (jnp.dot(sf, M1, precision=_HI, preferred_element_type=jnp.float32)
            .astype(jnp.int32) + 2) >> 2
-    f_nd = (jnp.dot(sf, M0, preferred_element_type=jnp.float32)
+    f_nd = (jnp.dot(sf, M0, precision=_HI,
+                    preferred_element_type=jnp.float32)
             .astype(jnp.int32) + 2) >> 2
     f = jnp.where(avail_d[:, None], f_d, f_nd)
     a0, l0, z = above[:, 0], left[:, 0], corner

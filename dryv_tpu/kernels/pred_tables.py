@@ -30,7 +30,7 @@ _L8 = lambda i: 17 + i       # left, i in 0..7
 def to_matrix(IDX, W, n_samples):
     """Fold tap tables into a dense matrix M [n_samples, n_out] so that
     acc = s @ M evaluates every (mode, position) weighted sum as one small
-    matmul (MXU-friendly; exact in float32 since |acc| < 2^24)."""
+    matmul (exact in float32 since |acc| < 2^24)."""
     n_modes, n_pos, _ = IDX.shape
     M = np.zeros((n_samples, n_modes * n_pos), np.float32)
     for m in range(n_modes):

@@ -165,11 +165,10 @@ def chroma_residual_tiles_ref(qp_cb, qp_cr, chroma_dc_lv, chroma_ac, n,
 # ---------------------------------------------------------------------------
 # Lane-major fast path.
 #
-# The block-major layout above keeps 4x4 blocks in the trailing dims, using
-# 4 of the TPU's 128 vector lanes (the round-1 stage-A bottleneck: ~5 ms per
-# 1080p frame).  The fast path transposes once to (coef-sublane, block-lane)
-# = (16, B) / (64, B) and expresses each separable IDCT direction as ONE
-# exact matmul: the butterfly's interior floor-shifts ((x>>1), (x>>2) —
+# The block-major layout above keeps 4x4 blocks in the trailing dims.  The
+# fast path transposes once to (coef-row, block-lane) = (16, B) / (64, B)
+# and expresses each separable IDCT direction as ONE exact matmul: the
+# butterfly's interior floor-shifts ((x>>1), (x>>2) —
 # reference transform.rs:159-187, pred8x8.rs:85-147) are hoisted into
 # explicitly shifted helper rows appended to the input ("augmented matrix"),
 # and the within-block transpose between directions is folded into the
@@ -277,10 +276,10 @@ _RASTER2Z = np.argsort(_Z2P).astype(np.int32)
 
 
 def _mm_i(M, X):
-    """Exact int matmul via f32 MXU (|acc| < 2^24).
+    """Exact int matmul in f32 (|acc| < 2^24).
 
-    Precision.HIGHEST forces full-f32 MXU passes; the TPU default is a
-    single bf16 pass, which rounds 12+-bit integers."""
+    Precision.HIGHEST forces full-f32 products; a default-precision dot
+    may round its inputs (bf16 or TF32), which breaks 12+-bit integers."""
     acc = jax.lax.dot_general(jnp.asarray(M), X.astype(jnp.float32),
                               (((1,), (0,)), ((), ())),
                               precision=jax.lax.Precision.HIGHEST,
@@ -362,74 +361,6 @@ def chroma_dc_lanes(dc, qp, ls4):
     f = _mm_i(_KH4, dc)
     ls00 = jnp.asarray(ls4).reshape(6, 16)[qp % 6, 0][None]
     return ((f * ls00) << (qp // 6)[None]) >> 5
-
-
-def _einmm(K, X, cd):
-    """out[..., p, m] = sum_q K[p, q] X[..., q, m] — batched exact matmul
-    (leading dims of X are batch; contraction on dim `cd`)."""
-    return jnp.einsum("pq,zqm->zpm", jnp.asarray(K), X.astype(jnp.float32),
-                      precision=jax.lax.Precision.HIGHEST).astype(jnp.int32)
-
-
-def idct4_batched(D):
-    """D (Z, 16, M) int32 (batch of 4x4 blocks, coef rows) -> r same."""
-    def one_dir(X):
-        Xp = _einmm(_P44, X, 1)
-        aug = jnp.concatenate([Xp, Xp[:, 4:8] >> 1, Xp[:, 12:16] >> 1],
-                              axis=1)
-        return _einmm(_M4DIR, aug, 1)
-    return (one_dir(one_dir(D)) + 32) >> 6
-
-
-def idct8_batched(D):
-    """D (Q, 64, M) int32 -> r same."""
-    def one_dir(X):
-        Xp = _einmm(_P88, X, 1)
-        sh1 = jnp.concatenate([Xp[:, 8:16], Xp[:, 16:24], Xp[:, 24:32],
-                               Xp[:, 40:48], Xp[:, 48:56], Xp[:, 56:64]],
-                              axis=1) >> 1
-        e = _einmm(_KE8, jnp.concatenate([Xp, sh1], axis=1), 1)
-        sh2 = jnp.concatenate([e[:, 8:16], e[:, 24:32], e[:, 40:48],
-                               e[:, 56:64]], axis=1) >> 2
-        return _einmm(_MF8, jnp.concatenate([e, sh2], axis=1), 1)
-    return (one_dir(one_dir(D)) + 32) >> 6
-
-
-def luma_residual_zrows(kind, qp, Z, luma_dc, ls4, ls8):
-    """Lane-major stage A without any spatial assembly.
-
-    Z (256, M) int32: each lane is one MB, rows are the 256 luma levels in
-    STORAGE order — z-block-major (16*zb + c) for I4/I16 MBs, quadrant-
-    major (64*q + c8) for I8 MBs (the two interpretations of the shared
-    buffer; the wavefront kernel reads rows per kind, so no reorder is
-    ever needed).  kind/qp (M,), luma_dc (16, M) raster rows.
-    Returns residual z-rows (256, M) int32."""
-    M = Z.shape[1]
-    # ---- 4x4 interpretation (I4 + I16-AC) ---------------------------
-    LS16 = _ls_rows(ls4, qp, 16)                    # (16, M)
-    shift = (qp // 6)[None]
-    prod = Z * jnp.tile(LS16, (16, 1))
-    hi = prod << jnp.maximum(shift - 4, 0)
-    rnd = 1 << jnp.clip(3 - shift, 0, 3)
-    lo = (prod + rnd) >> jnp.maximum(4 - shift, 0)
-    D4 = jnp.where((qp >= 24)[None], hi, lo)        # (256, M)
-    # I16: scaled DC values replace each z-block's DC before IDCT
-    is16 = (kind == KIND_I16)[None]
-    dcv = i16_dc_lanes(luma_dc, qp, ls4)            # (16, M) raster rows
-    dcz = dcv[jnp.asarray(_Z2P)]                    # z-block order rows
-    # DC passthrough for I16: the inserted value is already scaled
-    D4 = D4.reshape(16, 16, M)
-    D4 = D4.at[:, 0].set(jnp.where(is16, dcz, D4[:, 0]))
-    R4 = idct4_batched(D4).reshape(256, M)
-    # ---- 8x8 interpretation ------------------------------------------
-    LS64 = _ls_rows(ls8, qp, 64)
-    prod8 = Z * jnp.tile(LS64, (4, 1))
-    hi8 = prod8 << jnp.maximum(shift - 6, 0)
-    rnd8 = 1 << jnp.clip(5 - shift, 0, 5)
-    lo8 = (prod8 + rnd8) >> jnp.maximum(6 - shift, 0)
-    D8 = jnp.where((qp >= 36)[None], hi8, lo8)
-    R8 = idct8_batched(D8.reshape(4, 64, M)).reshape(256, M)
-    return jnp.where((kind == KIND_I8)[None], R8, R4)
 
 
 def luma_residual_tiles(kind, qp_y, luma4, luma8, luma_dc, n, ls4, ls8):

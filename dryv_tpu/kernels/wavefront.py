@@ -6,7 +6,7 @@ parallelism is the classic H.264 wavefront: MB (x, y) depends on
 (x-1,y), (x,y-1), (x+1,y-1), (x-1,y-1), so all MBs with equal d = x + 2y
 are independent.
 
-TPU-native state design ("frontier wavefront"): the scan carries only the
+State design ("frontier wavefront"): the scan carries only the
 dependency frontier — the bottom pixel row of the newest (and previous)
 completed MB per MB-column plus the right pixel column per MB-row (a few
 KB), NOT the frame planes.  Each diagonal step gathers its lanes' aprons
@@ -17,7 +17,10 @@ assembled afterwards with one parallel gather.  This keeps the sequential
 loop free of full-plane scatter/gather traffic.
 
 All arithmetic is exact int32: output is bit-identical to the scalar
-refimpl path (and the libavcodec goldens).
+refimpl path (and the libavcodec goldens).  The device paths run the same
+schedule as one Pallas kernel (kernels/wavefront_kernel.py); the scan
+here is its plain reference, and frontier_step drives the band-sharded
+path (parallel/bands.py).
 """
 from __future__ import annotations
 
@@ -268,11 +271,14 @@ def merge_pcm_and_slim(s):
     clamp(resid, -255, 255) preserves clip(pred + resid, 0, 255) for any
     pred in [0, 255], so residual tiles are safely int16.  PCM macroblocks
     place their raw samples in the residual tile; the step selects them
-    directly (prediction bypassed)."""
-    pcm = (s["kind"] == KIND_PCM)[:, None, None]
-    y = jnp.where(pcm, s["pcm_y"], jnp.clip(s["y_resid"], -255, 255))
-    c = jnp.where(pcm[..., None], s["pcm_c"],
-                  jnp.clip(s["c_resid"], -255, 255))
+    directly (prediction bypassed).  A dict without pcm_y/pcm_c carries no
+    PCM macroblocks."""
+    y = jnp.clip(s["y_resid"], -255, 255)
+    c = jnp.clip(s["c_resid"], -255, 255)
+    if "pcm_y" in s:
+        pcm = (s["kind"] == KIND_PCM)[:, None, None]
+        y = jnp.where(pcm, s["pcm_y"], y)
+        c = jnp.where(pcm[..., None], s["pcm_c"], c)
     out = dict(s)
     out["y_resid"] = y.astype(jnp.int16)
     out["c_resid"] = c.astype(jnp.int16)
@@ -468,20 +474,14 @@ def init_lane_state(K, zero=0):
 
 
 def make_wavefront_fn(mb_w: int, mb_h: int, bitdepth: int = 8,
-                      use_pallas=None, return_tiles: bool = False):
-    """Single-chip wavefront reconstruction, pure-XLA scan step.
-
-    This is the portable/shardable formulation (it runs under shard_map
-    on the banded multi-chip path and on CPU backends); the
-    single-kernel TPU fast path is kernels/pallas_wavefront.py, which is
-    asserted bit-identical to this one in tests/test_pallas_wavefront.py.
+                      return_tiles: bool = False):
+    """Single-frame wavefront reconstruction as an XLA scan over the
+    anti-diagonals (one lane_step per diagonal).
 
     Returns fn(syntax_dict, y_resid_tiles [n,16,16], c_resid_tiles
     [n,2,8,8]) -> (y, cb, cr) planes, or with return_tiles=True the raw
     diagonal-layout tiles (tiles_y [n_diag,K,16,16], tiles_c
     [n_diag,K,2,8,8]) for further wavefront passes (deblocking)."""
-    del use_pallas  # retired: the per-step pallas experiment is replaced
-    # by the whole-GOP kernel in pallas_wavefront.py
     sched_np, d_of, k_of = diag_schedule(mb_w, mb_h)
     s_ab, s_ar, s_lf, s_cn = diag_shifts(mb_w, mb_h)
     sched = jnp.asarray(sched_np)
@@ -509,5 +509,33 @@ def make_wavefront_fn(mb_w: int, mb_h: int, bitdepth: int = 8,
         if return_tiles:
             return tiles_y, tiles_c
         return tiles_to_planes(tiles_y, tiles_c, d_of, k_of, mb_w, mb_h)
+
+    return run
+
+
+def make_gop_wavefront_fn(mb_w: int, mb_h: int, deblock: bool = False):
+    """Reconstruction (+ in-loop deblocking) of F frames at once: the XLA
+    reference of wavefront_kernel.make_gop_wavefront_kernel_fn.
+
+    Returns fn(syntax [F,n,...], y_resid [F,n,16,16], c_resid
+    [F,n,2,8,8], pre=None) -> (y, cb, cr) uint8 [F, H, W] planes; pre is
+    the stacked [F, n, ...] edge-parameter dict (kernels.deblock
+    PRE_KEYS) when deblock=True."""
+    wf = make_wavefront_fn(mb_w, mb_h, return_tiles=True)
+    _, d_of, k_of = diag_schedule(mb_w, mb_h)
+    d_of = jnp.asarray(d_of)
+    k_of = jnp.asarray(k_of)
+    if deblock:
+        from .deblock import make_deblock_tiles_fn
+        dbfn = make_deblock_tiles_fn(mb_w, mb_h)
+
+    def planes(ty, tc):
+        return tiles_to_planes(ty, tc, d_of, k_of, mb_w, mb_h)
+
+    def run(s, y_resid, c_resid, pre=None):
+        ty, tc = jax.vmap(wf)(s, y_resid, c_resid)
+        if deblock:
+            ty, tc = jax.vmap(dbfn)(ty, tc, pre)
+        return jax.vmap(planes)(ty, tc)
 
     return run

@@ -1,4 +1,4 @@
-// TPU-native AVC host entropy stage: CABAC I-slice decoder producing dense
+// AVC host entropy stage: CABAC I-slice decoder producing dense
 // per-frame syntax arrays for the device reconstruction pipeline.
 //
 // Behavioural mirror of dryv_tpu/cabac/{engine,syntax}.py (itself validated
@@ -2384,10 +2384,9 @@ int dt_decode_picture_slices_cavlc(
 
 // ---------------------------------------------------------------------------
 // Device bitmap-ABI pack: one picture's dense entropy outputs -> the compact
-// host->device buffers consumed by the Pallas densify kernel
-// (dryv_tpu/kernels/densify.py).  Replaces the per-frame numpy
-// memset+packbits+flatnonzero rescan that dominated the round-3 pipeline
-// (VERDICT r3 item 1).  Layout of the 408-coeff row per MB:
+// host->device buffers consumed by the device densify
+// (dryv_tpu/kernels/densify.py).  Replaces a per-frame numpy
+// memset+packbits+flatnonzero rescan.  Layout of the 408-coeff row per MB:
 //   [0:256)  luma levels (luma8 rows for 8x8-transform MBs, else luma4)
 //   [256:272) luma DC    [272:280) chroma DC (first 4 of each channel)
 //   [280:408) chroma AC  (first 4 blocks of each channel, 16 coeffs each)

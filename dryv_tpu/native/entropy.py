@@ -283,7 +283,7 @@ def reconstruct_islices(out: dict, sps, pps):
     """Native scalar reconstruction from dense entropy outputs (intra).
 
     Returns (y, cb, cr) uint8 planes.  Single-threaded — this is the
-    C++-scalar baseline path (see BASELINE.md)."""
+    C++-scalar baseline path (bench.py's vs_baseline)."""
     mb_w = sps.pic_width_in_mbs
     mb_h = sps.frame_height_in_mbs
     W, H = mb_w * 16, mb_h * 16

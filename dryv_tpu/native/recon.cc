@@ -4,8 +4,7 @@
 // transforms (spec 8.5) + intra prediction (spec 8.3) + per-MB frame loop.
 // Two uses: (a) CPU fallback decode path, (b) the single-threaded
 // C++ full-decode baseline that stands in for the reference decoder's
-// Rust CPU performance in bench.py (cargo is not available in this image;
-// see BASELINE.md).
+// Rust CPU performance in bench.py (cargo is not available in this image).
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>

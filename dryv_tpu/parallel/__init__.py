@@ -1,12 +1,12 @@
 """Multi-chip scaling (SURVEY.md §2.10): mesh construction, frame-parallel
-GOP decode (dp axis), and band-parallel wavefront reconstruction with ICI
+GOP decode (dp axis), and band-parallel wavefront reconstruction with
 halo exchange of intra-boundary pixel rows (sp axis).
 
 The reference is strictly sequential (zero parallelism, no comm backend);
 these axes exploit the bitstream's latent parallelism: frames/GOPs are
 independent, slices are independently entropy-decodable, and the MB
 wavefront admits band sharding with one boundary pixel-row exchanged per
-diagonal step (ring ppermute over ICI).
+diagonal step (ring ppermute).
 """
 from .mesh import make_mesh
 from .gop import decode_gop_sharded, make_gop_recon_fn

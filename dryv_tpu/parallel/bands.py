@@ -1,4 +1,4 @@
-"""Band-sharded wavefront reconstruction with ICI halo exchange.
+"""Band-sharded wavefront reconstruction with halo exchange.
 
 One frame's MB rows split into contiguous bands across the mesh "band"
 axis.  The global anti-diagonal schedule still runs; each step every
@@ -6,7 +6,7 @@ device reconstructs its band's MBs of that diagonal, then ppermutes its
 frontier bottom rows (per-MB-column newest bottom pixel rows — a few KB)
 to the next band, where lanes on the band's first MB row read them as
 their above/corner apron (SURVEY §5: ring-attention-style neighbor
-exchange -> halo exchange of MB-boundary pixel rows over ICI).
+exchange -> halo exchange of MB-boundary pixel rows between devices).
 
 Freshness: an MB on diagonal d needs above-band pixels from neighbor-band
 MBs on diagonals <= d-1 (above-right); the exchange at the end of every
@@ -61,7 +61,6 @@ def make_banded_frame_fn(mesh, mb_w: int, mb_h: int, axis: str = "band",
     over the mesh axis, runs the halo-exchanging wavefront, and returns
     cropped numpy planes."""
     from jax.sharding import PartitionSpec as P
-    from jax.experimental.shard_map import shard_map
     from ..pipeline import SYNTAX_KEYS
     from ..kernels.transform import (
         LS4_FLAT, LS8_FLAT, chroma_residual_tiles, luma_residual_tiles)
@@ -98,7 +97,7 @@ def make_banded_frame_fn(mesh, mb_w: int, mb_h: int, axis: str = "band",
             state, halo = carry
             state, out16, outc = frontier_step(
                 x, mb_w, state, halo, bitdepth)
-            # exchange frontier bottom rows to the next band over ICI
+            # exchange frontier bottom rows to the next band
             halo = {
                 "bot_cur": jax.lax.ppermute(state["bot_cur"], axis, perm),
                 "cbot_cur": jax.lax.ppermute(state["cbot_cur"], axis, perm),
@@ -113,10 +112,10 @@ def make_banded_frame_fn(mesh, mb_w: int, mb_h: int, axis: str = "band",
         return tiles_to_planes(tiles_y, tiles_c, d_of, k_of, mb_w, rows)
 
     spec = P(axis)
-    fn = shard_map(local, mesh=mesh,
-                   in_specs=({k: spec for k in SYNTAX_KEYS}, spec, spec,
-                             spec),
-                   out_specs=(spec, spec, spec))
+    fn = jax.shard_map(local, mesh=mesh,
+                       in_specs=({k: spec for k in SYNTAX_KEYS}, spec, spec,
+                                 spec),
+                       out_specs=(spec, spec, spec))
     jfn = jax.jit(fn)
 
     def run(fs):
@@ -142,144 +141,6 @@ def make_banded_wavefront_fn(*a, **kw):  # back-compat alias
 
 
 # ---------------------------------------------------------------------------
-# band-pipelined whole-band Pallas schedule
-# ---------------------------------------------------------------------------
-
-def pack_halo_blocks(halo_y, halo_c, mb_w: int, rows: int, Fi: int,
-                     Kpad: int):
-    """Neighbour-band bottom pixel rows -> per-diagonal kernel halo blocks.
-
-    halo_y [Fi, mb_w, 16] int32 (bottom luma row per MB column),
-    halo_c [Fi, mb_w, 2, 8].  Returns [n_diag, HALO_ROWS, N] int32: for
-    each band-local diagonal d < mb_w, the row-0 macroblock (x = d) sits
-    at lane fi*Kpad + 1, and its above/above-right/corner aprons come
-    from columns d / d+1 / d-1 of the halo."""
-    import jax.numpy as jnp
-
-    n_diag = mb_w + 2 * (rows - 1)
-    halo_y = halo_y.astype(jnp.int32)
-    halo_c = halo_c.astype(jnp.int32)
-
-    def t(x):                                     # [Fi, mb_w, R] -> [mb_w, R, Fi]
-        return jnp.transpose(x, (1, 2, 0))
-
-    a16 = t(halo_y)                                           # rows 0:16
-    ar8 = t(jnp.pad(halo_y[:, 1:, 0:8], ((0, 0), (0, 1), (0, 0))))
-    cn = t(jnp.pad(halo_y[:, :-1, 15:16], ((0, 0), (1, 0), (0, 0))))
-    cab = t(halo_c.reshape(halo_c.shape[0], mb_w, 16))        # rows 25:41
-    ccn = t(jnp.pad(halo_c[:, :-1, :, 7], ((0, 0), (1, 0), (0, 0))))
-    Fi_ = halo_y.shape[0]
-    mask = jnp.ones((mb_w, 1, Fi_), jnp.int32)                # row 43
-    pad = jnp.zeros((mb_w, 4, Fi_), jnp.int32)
-    payload = jnp.concatenate([a16, ar8, cn, cab, ccn, mask, pad], axis=1)
-    # lane slot 1 of each frame segment (k = 0 on every diagonal)
-    blk = jnp.pad(payload[..., None], ((0, 0), (0, 0), (0, 0),
-                                       (1, Kpad - 2)))
-    blk = blk.reshape(mb_w, payload.shape[1], Fi_ * Kpad)
-    return jnp.pad(blk, ((0, n_diag - mb_w), (0, 0), (0, 0)))
-
-
-def make_banded_gop_pallas_fn(mesh, mb_w: int, mb_h: int, F: int,
-                              Fi: int = 0, axis: str = "band",
-                              interpret=None):
-    """Band-pipelined whole-GOP reconstruction with the Pallas kernel.
-
-    MB rows split into contiguous bands over the mesh axis; frames
-    pipeline through the bands (pipeline-parallel schedule: at step t,
-    band b reconstructs frame group t-b with ONE Pallas launch, then
-    ppermutes its bottom pixel rows to band b+1 over ICI).  With G frame
-    groups the pipeline fill costs B-1 idle steps — efficiency
-    G/(G+B-1), the classic microbatch trade — but each step is a single
-    kernel launch instead of the per-diagonal halo scan of
-    make_banded_frame_fn.  Intra only (no deblock; in-loop filtering
-    across a band boundary needs a back-edge fixup — use the gop axis or
-    single-chip pipeline for deblocked streams).
-
-    Returns run(fs_list) -> (y [F, H, W], cb, cr) numpy, cropped."""
-    import jax
-    import jax.numpy as jnp
-    from jax.sharding import PartitionSpec as P
-
-    from ..kernels.pallas_wavefront import (lane_geometry,
-                                            make_gop_recon_pallas,
-                                            stage_a_residuals)
-    from ..kernels.transform import LS4_FLAT, LS8_FLAT
-    from ..pipeline import SYNTAX_KEYS
-    from .gop import stack_frames
-
-    B = mesh.shape[axis]
-    rows = -(-mb_h // B)
-    if not Fi:
-        _, Fi, _, _ = lane_geometry(mb_w, rows, F, 0)
-    assert F % Fi == 0, (F, Fi)
-    G = F // Fi
-    _, _, Kpad, N = lane_geometry(mb_w, rows, Fi, Fi)
-    recon = make_gop_recon_pallas(mb_w, rows, Fi, Fi=Fi, banded=True,
-                                  interpret=interpret)
-    n_local = rows * mb_w
-    T = G + B - 1
-    perm = [(i, i + 1) for i in range(B - 1)]
-    ls4 = jnp.asarray(LS4_FLAT)
-    ls8 = jnp.asarray(LS8_FLAT)
-
-    def local(s):
-        b = jax.lax.axis_index(axis)
-
-        def step(carry, t):
-            hy, hc = carry
-            g = jnp.clip(t - b, 0, G - 1)
-            sf = {k: jax.lax.dynamic_slice_in_dim(s[k], g * Fi, Fi, 0)
-                  for k in s}
-            s2, y_z, c_res = stage_a_residuals(sf, ls4, ls4, ls4, ls8,
-                                               Fi, n_local)
-            halo = pack_halo_blocks(hy, hc, mb_w, rows, Fi, Kpad)
-            y, cb, cr = recon(s2, y_z, c_res, halo)
-            hy2 = y[:, -1, :].reshape(Fi, mb_w, 16).astype(jnp.int32)
-            hc2 = jnp.stack(
-                [cb[:, -1, :].reshape(Fi, mb_w, 8),
-                 cr[:, -1, :].reshape(Fi, mb_w, 8)],
-                axis=2).astype(jnp.int32)
-            new = (jax.lax.ppermute(hy2, axis, perm),
-                   jax.lax.ppermute(hc2, axis, perm))
-            return new, (y, cb, cr)
-
-        carry0 = (jnp.zeros((Fi, mb_w, 16), jnp.int32),
-                  jnp.zeros((Fi, mb_w, 2, 8), jnp.int32))
-        _, (ys, cbs, crs) = jax.lax.scan(step, carry0, jnp.arange(T))
-        # band b's frame group g ran at step t = g + b
-        ys = jax.lax.dynamic_slice_in_dim(ys, b, G, 0) \
-            .reshape(F, rows * 16, mb_w * 16)
-        cbs = jax.lax.dynamic_slice_in_dim(cbs, b, G, 0) \
-            .reshape(F, rows * 8, mb_w * 8)
-        crs = jax.lax.dynamic_slice_in_dim(crs, b, G, 0) \
-            .reshape(F, rows * 8, mb_w * 8)
-        return ys, cbs, crs
-
-    spec = P(None, axis)
-    fn = jax.shard_map(local, mesh=mesh,
-                       in_specs=({k: spec for k in SYNTAX_KEYS},),
-                       out_specs=(spec, spec, spec), check_vma=False)
-    jfn = jax.jit(fn)
-
-    def run(fs_list):
-        assert len(fs_list) == F, (len(fs_list), F)
-        stacked = stack_frames(fs_list)
-        n_pad = B * n_local
-        for k in SYNTAX_KEYS:
-            arr = stacked[k]
-            if arr.shape[1] != n_pad:
-                pad = np.zeros((F, n_pad - arr.shape[1]) + arr.shape[2:],
-                               arr.dtype)
-                stacked[k] = np.concatenate([arr, pad], axis=1)
-        y, cb, cr = jfn(stacked)
-        H = mb_h * 16
-        return (np.asarray(y)[:, :H], np.asarray(cb)[:, :H // 2],
-                np.asarray(cr)[:, :H // 2])
-
-    return run
-
-
-# ---------------------------------------------------------------------------
 # Banded P-frame reconstruction: reference-plane halo exchange for inter
 # prediction (the last SURVEY 2.10 partial).  Motion vectors reach into
 # neighbor bands' reference pixels; each band ppermutes an apron of its
@@ -298,11 +159,10 @@ def make_banded_p_recon_fn(mesh, mb_w: int, mb_h: int, apron: int,
 
     Planes and per-block arrays shard along MB rows over the mesh's
     `axis`; each device receives `apron` extra reference rows from each
-    neighbor band over ICI (one ppermute pair) and runs quarter-pel MC +
+    neighbor band (one ppermute pair) and runs quarter-pel MC +
     residual add locally.  Vertical MV integer reach (plus the 6-tap
     margin) must stay within `apron` — the caller asserts this against
     the level's vertical MV range."""
-    from jax.experimental.shard_map import shard_map
     from jax.sharding import PartitionSpec as P
 
     from ..kernels.inter import mc_luma_blocks, mc_chroma_blocks
@@ -325,7 +185,7 @@ def make_banded_p_recon_fn(mesh, mb_w: int, mb_h: int, apron: int,
         def ext_plane(p, a, hb, htot):
             """Extended local plane [a + hb + a, W]: aprons gathered from
             ceil(a/hb) neighbor bands in each direction (chained
-            ppermutes over ICI), then remapped so rows outside the frame
+            ppermutes), then remapped so rows outside the frame
             replicate the frame edge — which makes the extended-plane
             row clamp EXACTLY the global row clamp (same argument as
             edge-padded window gathers)."""
@@ -388,10 +248,11 @@ def make_banded_p_recon_fn(mesh, mb_w: int, mb_h: int, apron: int,
         return yp[None], cbp[None], crp[None]
 
     spec = P(axis)
-    fn = shard_map(local, mesh=mesh,
-                   in_specs=(P(None, axis), P(None, axis), P(None, axis),
-                             spec, spec, spec, spec),
-                   out_specs=(P(None, axis), P(None, axis), P(None, axis)))
+    fn = jax.shard_map(local, mesh=mesh,
+                       in_specs=(P(None, axis), P(None, axis), P(None, axis),
+                                 spec, spec, spec, spec),
+                       out_specs=(P(None, axis), P(None, axis),
+                                  P(None, axis)))
     jfn = jax.jit(fn)
 
     def run(ref_y, ref_cb, ref_cr, mv, rs, y_resid, c_resid):

@@ -1,21 +1,19 @@
 """Frame-parallel GOP decode: intra frames are fully independent, so a GOP
 shards over the mesh "gop" axis; each device reconstructs its frames with
-the single-chip pipeline (stage A + wavefront) under vmap.
+the single-device pipeline (stage A + the wavefront kernel).
 """
 from __future__ import annotations
 
-from functools import lru_cache, partial
+from functools import lru_cache
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
-from jax.experimental.shard_map import shard_map
 
 from ..pipeline import SYNTAX_KEYS
 from ..kernels.transform import (
     LS4_FLAT, LS8_FLAT, chroma_residual_tiles, luma_residual_tiles)
-from ..kernels.wavefront import make_wavefront_fn
 
 
 def stack_frames(fs_list):
@@ -27,70 +25,32 @@ def stack_frames(fs_list):
 
 
 @lru_cache(maxsize=None)
-def _frame_recon_fn(mb_w: int, mb_h: int, deblock: bool = False):
-    wavefront = make_wavefront_fn(mb_w, mb_h, return_tiles=deblock)
-    if deblock:
-        from ..kernels.deblock import make_deblock_tiles_fn, PRE_KEYS
-        from ..kernels.wavefront import diag_schedule, tiles_to_planes
-        dbfn = make_deblock_tiles_fn(mb_w, mb_h)
-        _, d_of, k_of = diag_schedule(mb_w, mb_h)
+def make_gop_recon_fn(mesh: Mesh, mb_w: int, mb_h: int, axis: str = "gop",
+                      interpret: bool = False):
+    """jitted fn: stacked syntax [F,...] (F divisible by mesh axis size)
+    -> (y[F,H,W], cb, cr), frames sharded over `axis`; every shard runs
+    the wavefront kernel once over its frames."""
+    from ..kernels.wavefront_kernel import make_gop_wavefront_kernel_fn
 
-    def recon_one(s):
-        n = mb_w * mb_h
+    n = mb_w * mb_h
+    recon = make_gop_wavefront_kernel_fn(mb_w, mb_h, False, interpret)
+
+    def local(s):  # s: local shard [F_local, ...]
+        F = s["kind"].shape[0]
+        M = F * n
+        flat = {k: v.reshape((M,) + v.shape[2:]) for k, v in s.items()}
         y_resid = luma_residual_tiles(
-            s["kind"], s["qp_y"], s["luma4"], s["luma8"], s["luma_dc"],
-            n, jnp.asarray(LS4_FLAT), jnp.asarray(LS8_FLAT))
+            flat["kind"], flat["qp_y"], flat["luma4"], flat["luma8"],
+            flat["luma_dc"], M, jnp.asarray(LS4_FLAT), jnp.asarray(LS8_FLAT))
         c_resid = chroma_residual_tiles(
-            s["qp_cb"], s["qp_cr"], s["chroma_dc"], s["chroma_ac"], n,
-            jnp.asarray(LS4_FLAT), jnp.asarray(LS4_FLAT))
+            flat["qp_cb"], flat["qp_cr"], flat["chroma_dc"],
+            flat["chroma_ac"], M, jnp.asarray(LS4_FLAT),
+            jnp.asarray(LS4_FLAT))
         wf = {k: s[k] for k in SYNTAX_KEYS if k not in
               ("qp_y", "qp_cb", "qp_cr", "luma4", "luma8", "luma_dc",
                "chroma_dc", "chroma_ac")}
-        if not deblock:
-            return wavefront(wf, y_resid, c_resid)
-        tiles_y, tiles_c = wavefront(wf, y_resid, c_resid)
-        ty, tc = dbfn(tiles_y, tiles_c, {k: s[k] for k in PRE_KEYS})
-        return tiles_to_planes(ty, tc, jnp.asarray(d_of), jnp.asarray(k_of),
-                               mb_w, mb_h)
-
-    return recon_one
-
-
-def make_gop_recon_fn(mesh: Mesh, mb_w: int, mb_h: int, axis: str = "gop"):
-    """jitted fn: stacked syntax [F,...] (F divisible by mesh axis size)
-    -> (y[F,H,W], cb, cr), frames sharded over `axis`.  Portable XLA-scan
-    formulation (the Pallas shard path is make_gop_recon_pallas_sharded)."""
-    recon_one = _frame_recon_fn(mb_w, mb_h)
-
-    def local(s):  # s: local shard [F_local, ...]
-        return jax.vmap(recon_one)(s)
-
-    spec = P(axis)
-    fn = shard_map(local, mesh=mesh,
-                   in_specs=({k: spec for k in SYNTAX_KEYS},),
-                   out_specs=(spec, spec, spec))
-    return jax.jit(fn)
-
-
-@lru_cache(maxsize=None)
-def make_gop_recon_pallas_sharded(mesh: Mesh, mb_w: int, mb_h: int,
-                                  F_local: int, axis: str = "gop"):
-    """jitted fn: stacked syntax [F,...] -> planes, frames sharded over
-    `axis`; every shard reconstructs its F_local frames with ONE launch
-    of the whole-GOP Pallas mega-kernel (kernels/pallas_wavefront.py)
-    instead of the per-diagonal XLA scan."""
-    from ..kernels.pallas_wavefront import (make_gop_recon_pallas,
-                                            stage_a_residuals)
-
-    recon = make_gop_recon_pallas(mb_w, mb_h, F_local)
-    n = mb_w * mb_h
-    ls4 = jnp.asarray(LS4_FLAT)
-    ls8 = jnp.asarray(LS8_FLAT)
-
-    def local(s):  # s: local shard [F_local, ...]
-        s, y_z, c_resid = stage_a_residuals(s, ls4, ls4, ls4, ls8,
-                                            F_local, n)
-        return recon(s, y_z, c_resid)
+        return recon(wf, y_resid.reshape(F, n, 16, 16),
+                     c_resid.reshape(F, n, 2, 8, 8))
 
     spec = P(axis)
     # check_vma off: pallas_call outputs carry no varying-mesh-axes
@@ -102,7 +62,7 @@ def make_gop_recon_pallas_sharded(mesh: Mesh, mb_w: int, mb_h: int,
 
 
 def decode_gop_sharded(fs_list, mesh: Mesh, axis: str = "gop",
-                       use_pallas: bool = True):
+                       interpret: bool = False):
     """Decode a list of FrameSyntax (same geometry) sharded over the mesh."""
     assert fs_list, "empty GOP"
     mb_w, mb_h = fs_list[0].mb_w, fs_list[0].mb_h
@@ -110,11 +70,7 @@ def decode_gop_sharded(fs_list, mesh: Mesh, axis: str = "gop",
     pad = (-len(fs_list)) % n_dev
     padded = list(fs_list) + [fs_list[-1]] * pad
     stacked = stack_frames(padded)
-    if use_pallas:
-        fn = make_gop_recon_pallas_sharded(mesh, mb_w, mb_h,
-                                           len(padded) // n_dev, axis)
-    else:
-        fn = make_gop_recon_fn(mesh, mb_w, mb_h, axis)
+    fn = make_gop_recon_fn(mesh, mb_w, mb_h, axis, interpret)
     y, cb, cr = fn(stacked)
     F = len(fs_list)
     return np.asarray(y[:F]), np.asarray(cb[:F]), np.asarray(cr[:F])

@@ -1,7 +1,9 @@
-"""End-to-end TPU reconstruction pipeline: FrameSyntax -> YUV planes.
+"""End-to-end device reconstruction pipeline: FrameSyntax -> YUV planes.
 
-Stage A (parallel IQ/IDCT) + Stage B (wavefront) jitted as one program.
-Bit-exact against the scalar refimpl / libavcodec goldens.
+Stage A (parallel IQ/IDCT) + Stage B (the wavefront kernel, + the
+deblocking wavefront) jitted as one program.  Bit-exact against the
+scalar refimpl / libavcodec goldens.  ``interpret=True`` runs the Pallas
+kernel in interpret mode (CPU tests); nothing here chooses it.
 """
 from __future__ import annotations
 
@@ -18,7 +20,6 @@ from .kernels.transform import (
     chroma_residual_tiles,
     luma_residual_tiles,
 )
-from .kernels.wavefront import make_wavefront_fn
 
 SYNTAX_KEYS = ["kind", "qp_y", "qp_cb", "qp_cr", "i16_mode", "chroma_mode",
                "modes4", "modes8", "luma4", "luma8", "luma_dc", "chroma_dc",
@@ -27,16 +28,11 @@ SYNTAX_KEYS = ["kind", "qp_y", "qp_cb", "qp_cr", "i16_mode", "chroma_mode",
 
 
 @lru_cache(maxsize=None)
-def _build(mb_w: int, mb_h: int, deblock: bool = False):
-    from .kernels.wavefront import diag_schedule, tiles_to_planes
+def _build(mb_w: int, mb_h: int, deblock: bool = False,
+           interpret: bool = False):
+    from .kernels.wavefront_kernel import make_gop_wavefront_kernel_fn
 
-    wavefront = make_wavefront_fn(mb_w, mb_h, return_tiles=deblock)
-    if deblock:
-        from .kernels.deblock import make_deblock_tiles_fn
-        dbfn = make_deblock_tiles_fn(mb_w, mb_h)
-        _, d_of, k_of = diag_schedule(mb_w, mb_h)
-        d_of = jnp.asarray(d_of)
-        k_of = jnp.asarray(k_of)
+    wavefront = make_gop_wavefront_kernel_fn(mb_w, mb_h, deblock, interpret)
 
     def recon(s, ls4y, ls4cb, ls4cr, ls8y, pre=None):
         n = mb_w * mb_h
@@ -49,17 +45,15 @@ def _build(mb_w: int, mb_h: int, deblock: bool = False):
         wf = {k: s[k] for k in SYNTAX_KEYS if k not in
               ("qp_y", "qp_cb", "qp_cr", "luma4", "luma8", "luma_dc",
                "chroma_dc", "chroma_ac")}
-        if not deblock:
-            return wavefront(wf, y_resid, c_resid)
-        tiles_y, tiles_c = wavefront(wf, y_resid, c_resid)
-        ty, tc = dbfn(tiles_y, tiles_c, pre)
-        return tiles_to_planes(ty, tc, d_of, k_of, mb_w, mb_h)
+        one = jax.tree.map(lambda a: a[None], (wf, y_resid, c_resid, pre))
+        y, cb, cr = wavefront(*one)
+        return y[0], cb[0], cr[0]
 
     return jax.jit(recon)
 
 
 def reconstruct_frame_jax(fs: FrameSyntax, ls4=None, ls8=None,
-                          deblock_pre=None):
+                          deblock_pre=None, interpret: bool = False):
     """Returns (y, cb, cr) numpy uint8-range int32 planes (uncropped).
 
     deblock_pre: edge-parameter dict from
@@ -71,17 +65,17 @@ def reconstruct_frame_jax(fs: FrameSyntax, ls4=None, ls8=None,
     ls4cr = jnp.asarray(ls4[2] if ls4 is not None else LS4_FLAT)
     ls8y = jnp.asarray(ls8 if ls8 is not None else LS8_FLAT)
     if deblock_pre is not None:
-        fn = _build(fs.mb_w, fs.mb_h, True)
+        fn = _build(fs.mb_w, fs.mb_h, True, interpret)
         y, cb, cr = fn(s, ls4y, ls4cb, ls4cr, ls8y,
                        {k: jnp.asarray(v) for k, v in deblock_pre.items()})
     else:
-        fn = _build(fs.mb_w, fs.mb_h)
+        fn = _build(fs.mb_w, fs.mb_h, False, interpret)
         y, cb, cr = fn(s, ls4y, ls4cb, ls4cr, ls8y)
     return np.asarray(y), np.asarray(cb), np.asarray(cr)
 
 
 def decode_annexb_fast(stream: bytes, max_frames: int = 0,
-                       n_threads: int = 0):
+                       n_threads: int = 0, interpret: bool = False):
     """Production path: C++ entropy stage + JAX device reconstruction."""
     from .decoder import SyntaxDecoder, group_access_units, DecodedFrame
     from .avc import split_annexb
@@ -118,7 +112,7 @@ def decode_annexb_fast(stream: bytes, max_frames: int = 0,
                 # inter pipeline (MC kernel + device deblock) is
                 # decode_annexb_device (device_ipb.py; CLI
                 # --backend device-ipb), bit-exact and preferable for
-                # large frames / TPU-resident consumers.
+                # large frames / device-resident consumers.
                 from .native.full import decode_annexb_native
                 return decode_annexb_native(stream, max_frames,
                                             n_threads=n_threads)
@@ -158,7 +152,8 @@ def decode_annexb_fast(stream: bytes, max_frames: int = 0,
                 fs.kind, fs.qp_y, out["slice_id"], ctl, fs.mb_w, fs.mb_h,
                 pps.chroma_qp_index_offset,
                 off1 if off1 is not None else pps.chroma_qp_index_offset)
-        y, cb, cr = reconstruct_frame_jax(fs, ls4, ls8, deblock_pre=pre)
+        y, cb, cr = reconstruct_frame_jax(fs, ls4, ls8, deblock_pre=pre,
+                                          interpret=interpret)
         frames.append(DecodedFrame(y, cb, cr).crop(sps))
         if max_frames and len(frames) >= max_frames:
             break
@@ -224,7 +219,8 @@ def _deblock_native_intra(y, cb, cr, out, sps, pps, headers):
     return yy, bb, rr
 
 
-def decode_annexb_tpu(stream: bytes, max_frames: int = 0):
+def decode_annexb_tpu(stream: bytes, max_frames: int = 0,
+                      interpret: bool = False):
     """Full decode using the device pipeline for reconstruction."""
     from .decoder import SyntaxDecoder, group_access_units, DecodedFrame
     from .avc import split_annexb
@@ -251,7 +247,7 @@ def decode_annexb_tpu(stream: bytes, max_frames: int = 0):
         ls4 = [np.asarray(level_scale_4x4(dezigzag4(sl.l4x4[i])), np.int32)
                for i in range(3)]
         ls8 = np.asarray(level_scale_8x8(dezigzag8(sl.l8x8[0])), np.int32)
-        y, cb, cr = reconstruct_frame_jax(fs, ls4, ls8)
+        y, cb, cr = reconstruct_frame_jax(fs, ls4, ls8, interpret=interpret)
         frames.append(DecodedFrame(y, cb, cr).crop(sps))
         if max_frames and len(frames) >= max_frames:
             break

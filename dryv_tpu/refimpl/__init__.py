@@ -4,7 +4,7 @@ This is the correctness anchor of the framework: a direct, per-macroblock
 implementation of spec 8.3 (intra prediction) and 8.5 (inverse transforms)
 mirroring the reference's frame layer (src/video/frame/).  It is used by
 the fixture encoder as its reconstruction feedback loop and by the tests as
-the golden producer that the TPU (JAX/Pallas) pipeline must match
+the golden producer that the device (JAX/Pallas) pipeline must match
 bit-exactly.  It is NOT the production decode path.
 """
 from .transform import (

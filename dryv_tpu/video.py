@@ -106,15 +106,17 @@ class Video:
         return to_annexb(nals)
 
     def decode_frames(self, max_frames: int = 1, backend: str = "jax",
-                      timers=None):
+                      timers=None, interpret: bool = False):
         """Decode the first `max_frames` pictures to YUV, returned in
         display (POC) order.  Backends: 'jax' (device intra recon, native
         C++ host path for inter streams), 'native' (C++ entropy + recon +
         deblock), 'scalar' (Python refimpl).  The reference decodes
         exactly one intra frame (decoder.rs:88).  With `timers` (a
         utils.obs.StageTimers) the demux/entropy/pack/dispatch stages are
-        accumulated for CLI --stats reporting."""
+        accumulated for CLI --stats reporting.  interpret=True runs the
+        device backends' Pallas kernel in interpret mode (no GPU)."""
         import contextlib
+        import functools
 
         stage = (timers.stage if timers is not None
                  else lambda _name: contextlib.nullcontext())
@@ -122,14 +124,17 @@ class Video:
             stream = self.annexb_stream()
         if backend == "jax" and timers is not None:
             from .gop_pipeline import decode_annexb_gop_pipelined
-            frames = decode_annexb_gop_pipelined(stream, timers=timers)
+            frames = decode_annexb_gop_pipelined(stream, timers=timers,
+                                                 interpret=interpret)
             if max_frames:
                 frames = frames[:max_frames]
             return sorted(frames, key=lambda f: f.poc)
         if backend == "jax":
-            from .pipeline import decode_annexb_fast as fn
+            from .pipeline import decode_annexb_fast
+            fn = functools.partial(decode_annexb_fast, interpret=interpret)
         elif backend == "device-ipb":
-            from .device_ipb import decode_annexb_device as fn
+            from .device_ipb import decode_annexb_device
+            fn = functools.partial(decode_annexb_device, interpret=interpret)
         elif backend == "native":
             from .native.full import decode_annexb_native as fn
         else:

@@ -83,7 +83,7 @@ def test_cavlc_device_path():
     from dryv_tpu.pipeline import decode_annexb_tpu
     from dryv_tpu.testing.fixtures import get_fixture
     stream, (gy, gcb, gcr), sps, pps = get_fixture("cavlc_mix_qp26")
-    f = decode_annexb_tpu(stream)[0]
+    f = decode_annexb_tpu(stream, interpret=True)[0]
     assert np.array_equal(f.y, gy)
     assert np.array_equal(f.cb, gcb)
     assert np.array_equal(f.cr, gcr)

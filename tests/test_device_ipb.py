@@ -4,6 +4,7 @@ libavcodec oracle on motion-compensated sequences."""
 import numpy as np
 import pytest
 
+from dryv_tpu.decoder import DecodedFrame
 from dryv_tpu.device_ipb import decode_annexb_device
 from dryv_tpu.encoder import default_sps_pps
 from dryv_tpu.encoder.p_frame import SequenceEncoder
@@ -29,10 +30,15 @@ def _sources(seed, mb_w, mb_h):
     return frame_at
 
 
-def _check(stream, use_pallas=False):
+def _check(stream, device_out=False):
     ref = decode_annexb(stream)
-    got = sorted(decode_annexb_device(stream, use_pallas=use_pallas),
-                 key=lambda f: f.poc)
+    got = decode_annexb_device(stream, device_out=device_out,
+                               interpret=True)
+    if device_out:
+        # (y, cb, cr, poc, sps) device planes, display order, uncropped
+        got = [DecodedFrame(np.asarray(y), np.asarray(cb), np.asarray(cr),
+                            poc).crop(sps) for y, cb, cr, poc, sps in got]
+    got = sorted(got, key=lambda f: f.poc)
     assert len(ref) == len(got)
     for i, ((ry, rcb, rcr), f) in enumerate(zip(ref, got)):
         assert np.array_equal(ry, f.y), f"frame {i} luma"
@@ -41,8 +47,8 @@ def _check(stream, use_pallas=False):
 
 
 @pytest.mark.parametrize("deblock", [False, True])
-@pytest.mark.parametrize("use_pallas", [False, True])
-def test_device_ipb_sequence(deblock, use_pallas):
+@pytest.mark.parametrize("device_out", [False, True])
+def test_device_ipb_sequence(deblock, device_out):
     mb_w, mb_h = 6, 4
     frame_at = _sources(31, mb_w, mb_h)
     sps, pps = default_sps_pps(mb_w, mb_h, qp=28, poc_type=0, max_refs=2)
@@ -54,7 +60,7 @@ def test_device_ipb_sequence(deblock, use_pallas):
     ]
     stream = encode_sequence_annexb(sps, pps, frames,
                                     deblock_disable=0 if deblock else 1)
-    _check(stream, use_pallas=use_pallas)
+    _check(stream, device_out=device_out)
 
 
 def test_device_ipb_bench_fixture():
@@ -66,7 +72,8 @@ def test_device_ipb_bench_fixture():
     g = np.load(os.path.join(os.path.dirname(__file__), "..", "benchdata",
                              "bench_ipb_golden.npz"))
     stream = open(path, "rb").read()
-    frames = sorted(decode_annexb_device(stream), key=lambda f: f.poc)
+    frames = sorted(decode_annexb_device(stream, interpret=True),
+                    key=lambda f: f.poc)
     for i, f in enumerate(frames):
         assert np.array_equal(f.y, g[f"f{i}_y"]), f"frame {i}"
         assert np.array_equal(f.cb, g[f"f{i}_b"])
@@ -132,7 +139,7 @@ def test_device_conformance_bit_exact(path):
     never a crash, always bit-exact vs libavcodec."""
     stream = open(path, "rb").read()
     golden = decode_annexb(stream)
-    ours = decode_annexb_device(stream)
+    ours = decode_annexb_device(stream, interpret=True)
     assert len(ours) == len(golden), (len(ours), len(golden))
     for i, (o, g) in enumerate(zip(ours, golden)):
         for pn, op, gp in zip(("y", "cb", "cr"), (o.y, o.cb, o.cr), g):

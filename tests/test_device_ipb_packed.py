@@ -15,7 +15,8 @@ from test_device_ipb import _sources
 
 def _check(stream):
     ref = decode_annexb(stream)
-    got = sorted(decode_annexb_device_packed(stream), key=lambda f: f.poc)
+    got = sorted(decode_annexb_device_packed(stream, interpret=True),
+                 key=lambda f: f.poc)
     assert len(ref) == len(got)
     for i, ((ry, rcb, rcr), f) in enumerate(zip(ref, got)):
         assert np.array_equal(ry, f.y), f"frame {i} luma"
@@ -84,7 +85,7 @@ def test_packed_ipb_bench_fixture():
     g = np.load(os.path.join(os.path.dirname(__file__), "..", "benchdata",
                              "bench_ipb_golden.npz"))
     stream = open(path, "rb").read()
-    frames = sorted(decode_annexb_device_packed(stream),
+    frames = sorted(decode_annexb_device_packed(stream, interpret=True),
                     key=lambda f: f.poc)
     for i, f in enumerate(frames):
         assert np.array_equal(f.y, g[f"f{i}_y"]), f"frame {i}"

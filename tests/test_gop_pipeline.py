@@ -29,7 +29,8 @@ def test_gop_pipelined_oracle(params):
 
     stream = encode_x264(_frames(6), x264_params=params)
     ref = decode_annexb(stream)
-    got = decode_annexb_gop_pipelined(stream, gop=4, n_threads=1)
+    got = decode_annexb_gop_pipelined(stream, gop=4, n_threads=1,
+                                      interpret=True)
     assert len(got) == len(ref) == 6
     for f, (ry, rcb, rcr) in zip(got, ref):
         assert np.array_equal(f.y, ry)
@@ -43,7 +44,7 @@ def test_gop_pipelined_device_out():
     stream = encode_x264(_frames(3), x264_params="qp=30:keyint=1:nf=1")
     ref = decode_annexb(stream)
     got = decode_annexb_gop_pipelined(stream, gop=2, n_threads=1,
-                                      device_out=True)
+                                      device_out=True, interpret=True)
     assert len(got) == 3
     for (y, cb, cr), (ry, rcb, rcr) in zip(got, ref):
         H, W = ry.shape
@@ -58,7 +59,8 @@ def test_gop_pipelined_fallback_inter():
     stream = encode_x264(_frames(4), x264_params="qp=30:keyint=2:bframes=0:"
                                                  "scenecut=0:min-keyint=2")
     ref = decode_annexb(stream)
-    got = decode_annexb_gop_pipelined(stream, gop=4, n_threads=1)
+    got = decode_annexb_gop_pipelined(stream, gop=4, n_threads=1,
+                                      interpret=True)
     assert len(got) == len(ref)
     for f, (ry, rcb, rcr) in zip(got, ref):
         assert np.array_equal(f.y, ry)

@@ -15,7 +15,7 @@ SUBSET = ["mix_qp26", "mix8_qp30", "slices_qp28", "scal_mix8_qp28"]
 @pytest.mark.parametrize("name", SUBSET)
 def test_jax_decode_bit_exact(name):
     stream, (gy, gcb, gcr), sps, pps = get_fixture(name)
-    frame = decode_annexb_tpu(stream)[0]
+    frame = decode_annexb_tpu(stream, interpret=True)[0]
     assert np.array_equal(frame.y, gy), f"{name}: luma mismatch"
     assert np.array_equal(frame.cb, gcb), f"{name}: cb mismatch"
     assert np.array_equal(frame.cr, gcr), f"{name}: cr mismatch"
@@ -28,7 +28,7 @@ def test_fast_path_deblock_bit_exact(name):
     C++ entropy + device recon + C++ deblock path (no scalar fallback)."""
     from dryv_tpu.pipeline import decode_annexb_fast
     stream, (gy, gcb, gcr), sps, pps = get_fixture(name)
-    frame = decode_annexb_fast(stream)[0]
+    frame = decode_annexb_fast(stream, interpret=True)[0]
     assert np.array_equal(frame.y, gy), f"{name}: luma mismatch"
     assert np.array_equal(frame.cb, gcb), f"{name}: cb mismatch"
     assert np.array_equal(frame.cr, gcr), f"{name}: cr mismatch"
@@ -41,7 +41,7 @@ def test_fast_path_scaling_matrices(name):
     the device dequant (flat tables would decode these wrong)."""
     from dryv_tpu.pipeline import decode_annexb_fast
     stream, (gy, gcb, gcr), sps, pps = get_fixture(name)
-    frame = decode_annexb_fast(stream)[0]
+    frame = decode_annexb_fast(stream, interpret=True)[0]
     assert np.array_equal(frame.y, gy), f"{name}: luma mismatch"
     assert np.array_equal(frame.cb, gcb), f"{name}: cb mismatch"
     assert np.array_equal(frame.cr, gcr), f"{name}: cr mismatch"

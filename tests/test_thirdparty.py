@@ -20,7 +20,7 @@ import pytest
 HERE = os.path.dirname(os.path.abspath(__file__))
 CORPUS = os.path.join(HERE, "conformance")
 
-# decode gaps still open (tracked in docs/ROADMAP.md); empty since the
+# decode gaps still open (tracked in ROADMAP.md); empty since the
 # round-3 MBAFF inter reconstruction + MBAFF deblocking landed
 XFAIL = {}
 

@@ -4,7 +4,7 @@
 The reference dumps DPB + NAL + slice + first-10-MB debug state per
 sample (/root/reference/src/video/decoder.rs:128-140, with the Macroblock
 Debug impl at macroblock.rs:274-429 making the dumps diffable).  This tool
-is the TPU-native equivalent: it installs the decoder's per-picture debug
+is the equivalent here: it installs the decoder's per-picture debug
 hook (dryv_tpu.decoder.PIC_DEBUG_HOOK / native/full._PIC_DEBUG_HOOK) and
 writes one normalized text file per decoded picture, identical in format
 across the scalar-Python and native-C++ paths so the first divergent line

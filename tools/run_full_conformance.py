@@ -1,5 +1,10 @@
 #!/usr/bin/env python3
-"""Full conformance sweep: every fixture through every decode path."""
+"""Full conformance sweep: every fixture through every decode path.
+
+Usage: python tools/run_full_conformance.py [--interpret]
+(--interpret runs the device wavefront kernel in Pallas interpret mode,
+for machines without a GPU)."""
+import functools
 import os
 import sys
 
@@ -13,14 +18,17 @@ from dryv_tpu.pipeline import decode_annexb_fast, decode_annexb_tpu
 from dryv_tpu.testing.fixtures import all_fixture_names, get_fixture
 
 
-def main():
+def main(argv=None):
+    interpret = "--interpret" in (sys.argv[1:] if argv is None else argv)
     fails = 0
     for name in all_fixture_names():
         stream, (gy, gcb, gcr), _, _ = get_fixture(name)
         for label, fn in (("scalar", decode_annexb_scalar),
                           ("native", decode_annexb_native),
-                          ("jax", decode_annexb_tpu),
-                          ("fast", decode_annexb_fast)):
+                          ("jax", functools.partial(decode_annexb_tpu,
+                                                    interpret=interpret)),
+                          ("fast", functools.partial(decode_annexb_fast,
+                                                     interpret=interpret))):
             f = fn(stream)[0]
             if f.cb is None:
                 # monochrome: libavcodec synthesizes constant-128 chroma
